@@ -4,8 +4,7 @@ The production-scale path: a large labeled window pool trained with the
 data-parallel epoch trainer (`shard_map` + psum over the "data" mesh axis,
 the SPMD rebuild of the reference's rayon-pool shared-model loop,
 ``streamz-rs/src/main.rs:750-835``), with the per-shard gradients computed
-by the measured-winner kernel (the fused Pallas train step on TPU —
-``benchmarks/ROOFLINE.md``).
+by XLA's autodiff of the surrogate loss.
 
 Run:
     python examples/corpus_scale.py                    # all local devices

@@ -1,7 +1,7 @@
-"""Multi-stream serving demo: many concurrent callers, one TPU program.
+"""Multi-stream serving demo: many concurrent callers, one device program.
 
 The reference's serving surface is a single-microphone stub
-(``examples/live_stream.rs:1-9``).  This demo shows the TPU-first serving
+(``examples/live_stream.rs:1-9``).  This demo shows the batched serving
 shape instead: N independent PCM streams (simulated callers feeding ~100 ms
 chunks at different phases) advance together in ONE batched dispatch per
 tick via :class:`streamz_tpu.app.serve.MultiStreamIdentifier`, and each

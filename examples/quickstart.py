@@ -2,9 +2,9 @@
 
 Demonstrates the same flow a user of the reference binary knows —
 train on labeled clips, identify new audio, extract embeddings, match by
-cosine, checkpoint to ``model.npz`` — using the TPU-native library surface.
+cosine, checkpoint to ``model.npz`` — using the library surface.
 
-Run:  python examples/quickstart.py   (works on CPU or TPU)
+Run:  python examples/quickstart.py   (works on CPU or GPU)
 """
 
 import os

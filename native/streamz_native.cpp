@@ -1,9 +1,9 @@
-// StreamZ-TPU native host runtime: audio ingest in C++.
+// StreamZ native host runtime: audio ingest in C++.
 //
 // The reference's native components are minimp3 (vendored C decoder behind
 // minimp3-sys), hound's WAV codec, and a rayon thread pool fanning decode
 // work across cores (streamz-rs/src/lib.rs:399-547, Cargo.lock).  This
-// library is their host-side equivalent for the TPU build: libmpg123-backed
+// library is their host-side equivalent for the JAX build: libmpg123-backed
 // MP3 decode (dlopen'd, no headers needed), a RIFF/WAVE 16-bit codec, and a
 // std::thread pool batch decoder that feeds pinned host buffers to the
 // device pipeline.

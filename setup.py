@@ -3,7 +3,7 @@
 The sdist already carries ``native/`` via MANIFEST.in, but a wheel built
 from this tree would otherwise install only the ``streamz_tpu`` package —
 and the ctypes loader would silently fall back to pure-Python ingest
-(behavior-identical, a large perf cliff; VERDICT r4 missing #3).  This
+(behavior-identical, a large perf cliff).  This
 copies the sources into ``streamz_tpu/native/`` in the built wheel so
 ``pip install .`` keeps the fast path: ``streamz_tpu/io/native.py`` probes
 that directory second and builds the .so there on first use.

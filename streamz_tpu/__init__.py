@@ -1,12 +1,12 @@
-"""StreamZ-TPU: a TPU-native incremental open-set speaker-ID framework.
+"""StreamZ: an incremental open-set speaker-ID framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
 StreamZ application (Mycoearthdome/StreamZ): audio ingest (MP3/WAV decode,
-resample to 44.1 kHz), an MXU-resident MFCC+delta frontend, a batched
+resample to 44.1 kHz), a batched GEMM MFCC+delta frontend, a batched
 speaker-classification MLP with dynamically growing output classes, cosine
 centroid identification, k-means clustering, npz checkpoint interop, an
 incremental discovery loop, and the steganography subsystem — all designed
-SPMD-first for multi-chip TPU meshes.
+SPMD-first for multi-device meshes.
 
 The names exported here mirror the reference crate's ``pub`` surface
 (``streamz-rs/src/lib.rs``) one-to-one so users of the reference can map

@@ -1,11 +1,10 @@
-"""Whole-corpus batched training — the TPU-native fast path at scale.
+"""Whole-corpus batched training — the batched fast path at scale.
 
 The reference trains per file, per epoch, in batches of 8 windows behind a
 write lock (``streamz-rs/src/main.rs:750-835``).  When exact incremental
-semantics are not required (e.g. all labels known), the TPU-native way is one
+semantics are not required (e.g. all labels known), the batched way is one
 global shuffled window pool trained with large batches, data-parallel over a
-``"data"`` mesh axis with psum gradient allreduce — the VoxCeleb-scale
-1000-speaker configuration from BASELINE.json.
+``"data"`` mesh axis with psum gradient allreduce.
 
 ``train_corpus`` builds the pool from a feature map, shards it over the mesh,
 and drives :func:`streamz_tpu.parallel.data_parallel.make_dp_train_epoch`.
@@ -75,14 +74,7 @@ def train_corpus(
 
     n = len(windows)
     if n == 0:
-        return []  # before the autotune probe: nothing to train
-
-    # Pick the train-step kernel by measurement before tracing the epoch
-    # (a no-op off-TPU and on multi-host, where every host must trace the
-    # same program — runtime/autotune.py).
-    from streamz_tpu.nn.train import autotune_train_kernel
-
-    autotune_train_kernel()
+        return []
 
     steps = max(1, -(-n // batch_size))
     n_pad = steps * batch_size

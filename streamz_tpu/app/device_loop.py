@@ -1,9 +1,8 @@
 """Device-resident incremental loop: the whole corpus in a few dispatches.
 
-Round 1's incremental loop paid ~2 blocking device round-trips per file
-(embedding fetch → host match → train dispatch) — ~40 ms/file against a
-remote TPU vs ~1 ms of compute (VERDICT.md weak #6).  This rewrite moves the
-*entire* per-file body of the reference's hot loop C
+A host-stepped incremental loop pays ~2 blocking device round-trips per
+file (embedding fetch → host match → train dispatch), which dwarf the
+per-file compute.  This loop moves the *entire* per-file body of the reference's hot loop C
 (``streamz-rs/src/main.rs:750-835``) onto the device:
 
     embed (mean ReLU-h2, normalize)            src/main.rs:764-768
@@ -56,8 +55,7 @@ from streamz_tpu.runtime.progress import progress
 MAX_SCAN_FILES = 64
 
 # A chunk pads every file to the chunk's max window bucket, so interleaved
-# clip lengths still batch MAX_SCAN_FILES files per dispatch (round-2 weak
-# #2).  Safe because the per-file trainer is bit-identical across pad sizes
+# clip lengths still batch MAX_SCAN_FILES files per dispatch.  Safe because the per-file trainer is bit-identical across pad sizes
 # (counter-based PRNG: uniform(key, (n,))[i] does not depend on n; stable
 # argsort; all padding rows masked — verified in test_device_loop).  The
 # spread cap bounds the padding FLOPs a small file can pay when chunked next
@@ -84,31 +82,9 @@ def _prng_pad_invariant() -> bool:
         return False  # unknown jax version: take the conservative path
 
 
-def scan_forced_sharded(mesh) -> bool:
-    """True iff ``STREAMZ_SHARD_DISCOVERY`` forces the SPMD discovery scan
-    for this mesh — env set to anything but ``"0"``, with the SAME
-    eligibility :func:`run_incremental_device` applies (>1 device and a
-    pad-invariant PRNG).  The single predicate both call sites share:
-    ``incremental.py`` uses it to decide whether the single-device scan
-    (and thus the file-train backend's autotune probe) can ever be
-    consulted, so any drift from the scan's own resolution would either
-    pay a useless multi-second probe or skip a needed one.
-    """
-    import os
-
-    env = os.environ.get("STREAMZ_SHARD_DISCOVERY")
-    return (
-        mesh is not None
-        and int(mesh.devices.size) > 1
-        and env is not None
-        and env != "0"
-        and _prng_pad_invariant()
-    )
-
-
 def _file_body(
     carry, x, seed_cent, seed_mask, max_speakers, dropout, *, epochs,
-    batch_size, backend="auto", axis=None, n_dev=1,
+    batch_size, axis=None, n_dev=1,
 ):
     """One file of the incremental loop; shapes are per-bucket static.
 
@@ -156,7 +132,10 @@ def _file_body(
     ne = jnp.sqrt((emb * emb).sum())
     nc = jnp.sqrt((cent * cent).sum(axis=1))
     denom = ne * nc
-    sims = jnp.where(denom > 0.0, (cent @ emb) / jnp.where(denom == 0.0, 1.0, denom), 0.0)
+    # Elementwise multiply-sum, not a dot: float32 on every backend (a GPU
+    # dot would default to TF32, and the margins here are ~1e-3).
+    dots = (cent * emb[None, :]).sum(axis=1)
+    sims = jnp.where(denom > 0.0, dots / jnp.where(denom == 0.0, 1.0, denom), 0.0)
     sims = jnp.where(valid_id, sims, -jnp.inf)
     n_ids = valid_id.sum()
     best = jnp.argmax(sims).astype(jnp.int32)
@@ -195,7 +174,7 @@ def _file_body(
     if axis is None:
         params, loss = train_on_windows_impl(
             params, windows, n_valid, tvec, ns_new, key, lr, dropout,
-            epochs=epochs, batch_size=batch_size, backend=backend,
+            epochs=epochs, batch_size=batch_size,
         )
     else:
         from streamz_tpu.nn.train import train_on_windows_sharded_impl
@@ -215,7 +194,7 @@ def _file_body(
 
 @partial(
     jax.jit,
-    static_argnames=("epochs", "batch_size", "backend"),
+    static_argnames=("epochs", "batch_size"),
     donate_argnums=(0, 1, 2, 3),
 )
 def incremental_scan(
@@ -238,17 +217,8 @@ def incremental_scan(
     *,
     epochs: int,
     batch_size: int,
-    backend: str = "auto",
 ):
-    """Fused scan over up to MAX_SCAN_FILES files — one dispatch.
-
-    ``backend`` is the CONCRETE file-train kernel choice ('xla'/'pallas'),
-    resolved by the caller at call time: it is part of the jit cache key,
-    so an autotune decision landing after the first trace reaches
-    already-warm shapes instead of a stale trace-time resolution pinning
-    the losing kernel for the process lifetime (same pattern as
-    ``nn.train.train_on_windows``).
-    """
+    """Fused scan over up to MAX_SCAN_FILES files — one dispatch."""
     body = partial(
         _file_body,
         seed_cent=seed_cent,
@@ -257,7 +227,6 @@ def incremental_scan(
         dropout=dropout,
         epochs=epochs,
         batch_size=batch_size,
-        backend=backend,
     )
     carry = (params, num_speakers, run_sum, run_cnt)
     xs = (windows, n_valids, labels, burns, thresholds, lrs, keys, actives)
@@ -269,7 +238,7 @@ def incremental_scan(
 
 @lru_cache(maxsize=8)
 def make_incremental_scan_sharded(mesh, epochs: int, batch_size: int):
-    """The fused file scan SPMD over the data mesh (round-2 missing #1).
+    """The fused file scan SPMD over the data mesh.
 
     Every input is replicated (``P()``): decision state must be identical on
     all devices, and a file's window set is small enough (≤ a few MB) that
@@ -281,10 +250,10 @@ def make_incremental_scan_sharded(mesh, epochs: int, batch_size: int):
     (``streamz-rs/src/main.rs:750-835``).  Outputs (params, centroids,
     labels) stay replicated bit-identically on every device.
 
-    Measured trade-off: per-chunk gradient psums put ~280 collectives on
-    the critical path of a 448-window file (5 epochs x 56 chunks), so this
-    wins only when per-device compute per chunk dominates the ICI latency —
-    see benchmarks/ROOFLINE.md ("sharded discovery loop") for numbers.
+    Trade-off: per-chunk gradient psums put ~280 collectives on the
+    critical path of a 448-window file (5 epochs x 56 chunks), so this wins
+    only when per-device compute per chunk dominates the collective
+    latency — which is why :func:`_resolve_scan_backend` measures it.
     """
     from jax.sharding import PartitionSpec as P
 
@@ -328,18 +297,16 @@ def make_incremental_scan_sharded(mesh, epochs: int, batch_size: int):
 
 
 def _resolve_scan_backend(
-    mesh, epochs: int, batch_size: int, params, feat: int,
-    w_pad: int, file_train_backend: str,
+    mesh, epochs: int, batch_size: int, params, feat: int, w_pad: int,
 ) -> str:
-    """Measured choice between the single-device and SPMD discovery scans
-    (VERDICT r3 weak #2: the sharded scan was default-on while ROOFLINE's
-    model says it at best *matches* single-device at the reference's
-    batch-8 knobs — collective latency vs per-chunk compute is a
-    device/interconnect property, so measure it like every other backend
-    pair).  Probes one synthetic 8-file chunk at this run's leading window
-    bucket; cached per (device_kind, n_dev) via the autotune registry.
-    Off-TPU (or multi-host, or with probing disabled) the default is
-    'sharded' — current behavior, and what the CPU-mesh tests exercise.
+    """Measured choice between the single-device and SPMD discovery scans.
+    At the reference's batch-8 knobs the sharded scan's per-chunk
+    collectives can cost more than they save; collective latency against
+    per-chunk compute is a device and interconnect property, so it is
+    measured.  Probes one synthetic 8-file chunk at this run's leading
+    window bucket; cached per (device_kind, n_dev) via the autotune
+    registry.  On the CPU (or multi-host, or with probing disabled) the
+    default is 'sharded', which is what the CPU-mesh tests exercise.
     ``STREAMZ_SHARD_DISCOVERY`` still forces either path.
     """
     from streamz_tpu.runtime import autotune
@@ -404,7 +371,6 @@ def _resolve_scan_backend(
                 )
                 kw = ({} if sharded else dict(
                     epochs=int(epochs), batch_size=int(batch_size),
-                    backend=file_train_backend,
                 ))
                 out = fn(
                     *state, seed_cent, seed_mask, jnp.int32(2**30),
@@ -488,11 +454,6 @@ def run_incremental_device(
         else (_shard_env != "0") if _shard_env is not None
         else None
     )
-    # Resolve the file-train kernel OUTSIDE the traces below so the jit
-    # cache keys on the concrete choice (see incremental_scan's docstring).
-    from streamz_tpu.nn.train import _resolve_backend
-
-    file_train_backend = _resolve_backend("file_train", "auto")
     jobs = []  # (orig_index, path, label, windows, n_valid, bucket)
     for i, (path, label) in enumerate(train_files):
         windows = feature_map.get(path)
@@ -584,7 +545,7 @@ def run_incremental_device(
         # leading bucket shape; autotune caches the winner per device kind.
         sharded = _resolve_scan_backend(
             mesh, int(epochs), int(batch_size), params,
-            int(jobs[0][3].shape[1]), int(jobs[0][5]), file_train_backend,
+            int(jobs[0][3].shape[1]), int(jobs[0][5]),
         ) == "sharded"
 
     scan_sharded = (
@@ -601,7 +562,7 @@ def run_incremental_device(
             # Equality, not identity: current jax interns Mesh (equal
             # meshes ARE one object) but that is an implementation detail
             # — an equal-but-distinct Mesh must not silently drop the
-            # store and forfeit its measured ~43%-of-dispatch win.
+            # store and forfeit its device-resident input.
             (sharded and store.mesh == mesh)
             or (not sharded and store.mesh is None)
         )
@@ -630,11 +591,10 @@ def run_incremental_device(
         feat = jobs[job_ks[0]][3].shape[1]
         n_real = len(job_ks)
         # Device-side gather from the ingest store — no host→device feature
-        # re-upload (measured ~43% of a 64-file fused-loop dispatch through
-        # a remote TPU).  Misses (e.g. the PCM-sharded long-clip route, or a
+        # re-upload.  Misses (e.g. the PCM-sharded long-clip route, or a
         # bucket dropped by STREAMZ_STORE_MAX_MB) are host-packed and
-        # scattered INDIVIDUALLY — one missed clip no longer forfeits device
-        # residency for its whole chunk (VERDICT r3 #2).  With a mesh the
+        # scattered INDIVIDUALLY — one missed clip does not forfeit device
+        # residency for its whole chunk.  With a mesh the
         # gather is replicated (the SPMD scan's in_spec).
         wins_dev, misses = (
             store.gather_partial(
@@ -697,7 +657,6 @@ def run_incremental_device(
                 jnp.asarray(burns), jnp.asarray(thrs), jnp.asarray(lrs),
                 keys, jnp.asarray(actives),
                 epochs=int(epochs), batch_size=int(batch_size),
-                backend=file_train_backend,
             )
         out_parts.append((job_ks, sids, losses, embs, n_real))
 

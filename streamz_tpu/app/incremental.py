@@ -88,24 +88,7 @@ def run_incremental(
     bucket-spread cap keeps a long clip from inflating its neighbors'
     padding, and its padded windows are at most 2x the clip itself.
     """
-    from streamz_tpu.app.device_loop import (
-        run_incremental_device, scan_forced_sharded,
-    )
-    from streamz_tpu.nn.train import autotune_file_train
-
-    # Pick the per-file train kernel by measurement before tracing the
-    # fused loop (a no-op off-TPU and on multi-host — autotune.py).  The
-    # SPMD scan always trains via the sharded XLA body and never consults
-    # this choice, so skip the cold-cache probe only when the env knob
-    # FORCES the sharded scan; with the knob unset the scan backend is
-    # itself a measured choice (device_loop._resolve_scan_backend) that
-    # may land on the single-device path, which needs this decision.
-    # scan_forced_sharded is the SAME predicate the scan itself resolves
-    # (any non-"0" value, gated on pad-invariant PRNG eligibility) — a
-    # divergent copy here either pays this probe for nothing or skips it
-    # while the single-device scan still runs.
-    if not scan_forced_sharded(mesh):
-        autotune_file_train()
+    from streamz_tpu.app.device_loop import run_incremental_device
 
     total_loss, processed, sf, se = run_incremental_device(
         net,
@@ -259,7 +242,7 @@ def finalize_and_save(
     run just ingested reuse the in-memory (or device-resident) windows
     instead of being decoded+extracted AGAIN one at a time — on a fresh
     corpus the reference re-runs its whole per-file pipeline here
-    (``src/lib.rs:1569``), which on a TPU would mean one host round trip
+    (``src/lib.rs:1569``), which on a device would mean one host round trip
     per file; existing cache files still take precedence bit-for-bit.
     """
     from streamz_tpu.nn import checkpoint

@@ -7,12 +7,12 @@ are maintained *incrementally* on device, and the rolling identification is
 available at any time with ``identify_speaker_with_threshold`` semantics
 (``src/lib.rs:1307-1343``: confidence = best vote sum / window count).
 
-Design (TPU-first, static shapes):
+Design (static shapes):
 
 - The hop (400) being half the window (800) means every new 400-sample block
   yields exactly one new analysis window — the same split-block GEMM
   formulation as :func:`streamz_tpu.dsp.mfcc.mfcc_base`, so the streaming
-  step stays on the MXU.  The carry holds the previous block's DFT
+  step stays a GEMM.  The carry holds the previous block's DFT
   projection, so no PCM is ever re-projected.
 - The Δ/ΔΔ stencil reaches 2 base frames ahead (``src/lib.rs:212-228``), so a
   frame is *finalized* (features emitted, vote counted) once 2 further frames
@@ -51,7 +51,8 @@ def _make_stream_step(capacity: int, k: int):
     continuous audio), silently freezing a long-running live stream's
     confidence.
     """
-    from streamz_tpu.dsp.mfcc import _PREC, _constants
+    from streamz_tpu.dsp.mfcc import _constants
+    from streamz_tpu.precision import MATMUL
 
     dft_top, sign, fb_t, dct_t = _constants()
     nbins = config.N_FFT_BINS
@@ -59,16 +60,16 @@ def _make_stream_step(capacity: int, k: int):
     def step(params, carry, blocks, n_new, num_speakers):
         proj, has_prev, tail, n_base, votes, vcomp, count = carry
 
-        proj_new = jnp.dot(blocks, dft_top, precision=_PREC)  # [k, 802]
+        proj_new = jnp.dot(blocks, dft_top, precision=MATMUL)  # [k, 802]
         all_proj = jnp.concatenate([proj[None], proj_new])  # [k+1, 802]
         cos_p, sin_p = all_proj[:, :nbins], all_proj[:, nbins:]
         re = cos_p[:-1] + sign * cos_p[1:]
         im = sin_p[:-1] + sign * sin_p[1:]
         power = re * re + im * im  # [k, 401]
         mel_log = jnp.log(
-            jnp.maximum(jnp.dot(power, fb_t, precision=_PREC), 1e-12)
+            jnp.maximum(jnp.dot(power, fb_t, precision=MATMUL), 1e-12)
         )
-        new_base = jnp.dot(mel_log, dct_t, precision=_PREC)  # [k, 20]
+        new_base = jnp.dot(mel_log, dct_t, precision=MATMUL)  # [k, 20]
 
         # Frame j pairs all_proj[j] with all_proj[j+1]; without a previous
         # block the j=0 pair is bogus, so the first valid frame starts at

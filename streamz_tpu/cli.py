@@ -96,15 +96,14 @@ def build_feature_map(
     a path-keyed :class:`~streamz_tpu.dsp.mfcc.DeviceFeatureStore` holding
     the frontend's device outputs — the discovery loop assembles its fused
     chunks from it by device-side gather instead of re-uploading the
-    features it just downloaded (measured ~43% of a 64-file loop dispatch
-    through a remote TPU).  ``store`` is None when unavailable (numpy
+    features it just downloaded.  ``store`` is None when unavailable (numpy
     backend, multi-host run — host fetches there gather across processes,
     so per-process device rows don't cover every clip).
 
     ``store_paths`` restricts which clips the store keeps device-resident
     (e.g. eval mode pins only the eval targets — the training files'
     features are never gathered there, so pinning them would spend the
-    HBM budget on rows nobody reads).  Clips outside the set extract in a
+    device-memory budget on rows nobody reads).  Clips outside the set extract in a
     separate batched call so their buckets are never referenced by the
     store.
     """
@@ -119,9 +118,9 @@ def build_feature_map(
 
         from streamz_tpu.dsp.mfcc import DeviceFeatureStore
 
-        # STREAMZ_STORE_MAX_MB bounds the store's HBM residency (default
-        # 4096 MB ≈ 37k ten-second clips); <=0 disables the store entirely
-        # (every consumer host-packs, the round-2 behavior).
+        # STREAMZ_STORE_MAX_MB bounds the store's device-memory residency
+        # (default 4096 MB ≈ 37k ten-second clips); <=0 disables the store
+        # entirely (every consumer host-packs).
         try:
             cap_mb = float(os.environ.get("STREAMZ_STORE_MAX_MB", "4096"))
         except ValueError:
@@ -175,18 +174,6 @@ def build_feature_map(
     return fmap
 
 
-def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache (big win on TPU where device
-    compiles dominate cold-start time)."""
-    import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/streamz_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     if "--help" in args or "-h" in args:
@@ -206,12 +193,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             except BrokenPipeError:
                 pass
         return 0
-    _enable_compile_cache()
+    from streamz_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     # Multi-host bootstrap (must precede any device access): each process of
     # a multi-machine job passes the same coordinator and its own id, and the
-    # mesh below then spans every host's devices with DCN between them
-    # (SURVEY.md §5.8).  Single-process runs skip this entirely.
+    # mesh below then spans every host's devices (SURVEY.md §5.8).  Single-process runs skip this entirely.
     from streamz_tpu.parallel import comm
 
     comm.initialize_distributed(
@@ -264,7 +252,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     no_cache_wav = "--no-cache-wav" in args
     config.set_wav_cache_enabled(not no_cache_wav)
     if "--no-autotune" in args:
-        # Skip the first-use measurement probes (several seconds of TPU
+        # Skip the first-use measurement probes (seconds of device
         # cold-start); cached decisions still apply, a cold cache takes the
         # static defaults.  Exported so worker subprocesses inherit it.
         os.environ["STREAMZ_NO_AUTOTUNE"] = "1"
@@ -473,7 +461,7 @@ def _run_main_body(
     if not model_exists:
         train_refs = [(p, c) for p, c in train_files if c is not None]
         if train_refs:
-            # TPU-native initial training: one global shuffled window pool,
+            # Batched initial training: one global shuffled window pool,
             # large batches, data-parallel over the mesh with psum allreduce
             # (app/corpus.py) — replacing the reference's per-file batch-8
             # loop (src/main.rs:652-669).  Same epochs/lr/dropout knobs;
@@ -527,7 +515,7 @@ def _run_main_body(
             mesh=mesh,
         )
     if device_store is not None:
-        device_store.release()  # free the HBM feature copies
+        device_store.release()  # free the device feature copies
     if profile:
         print(timer.report())
 

@@ -77,7 +77,7 @@ STEGO_LR: float = 0.5  # src/lib.rs:1754
 # Payload bound for encode_file.  The trainer's output layer is
 # [h2=256, ~8·len] f32 — 8192 bytes of weights per payload byte — and the
 # on-device while_loop keeps ~3 copies live (params + the rank-1 update +
-# the donation slot), ≈ 24 KB HBM per payload byte: 128 KiB ⇒ ~3.2 GB.
+# the donation slot), ≈ 24 KB of device memory per payload byte: 128 KiB ⇒ ~3.2 GB.
 # Past this, encode_file fails fast with the sizing math instead of OOMing
 # mid-loop.  (The reference's only bound is its 10M-epoch budget,
 # src/lib.rs:1717-1772.)

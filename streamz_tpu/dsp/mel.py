@@ -93,8 +93,8 @@ def dft_block_matrices(window: int = config.WINDOW_SIZE):
         Im[t,k] = block_t · St[:,k] + block_{t+1} · Sb[:,k]
 
     with ``Ct[j,k] = cos(2*pi*k*j/W)``, ``Cb[j,k] = cos(2*pi*k*(j+b)/W)`` and
-    the negated-sine equivalents.  This keeps the FLOP-heavy stage a pure MXU
-    matmul (the TPU-native replacement for the reference's per-window rustfft
+    the negated-sine equivalents.  This keeps the FLOP-heavy stage a pure
+    matmul (the batched replacement for the reference's per-window rustfft
     call at ``src/lib.rs:296``).
 
     Moreover the bottom-role bases are parity-signed copies of the top ones —

@@ -1,15 +1,15 @@
-"""JAX/XLA MFCC frontend: batched, jitted, MXU-resident.
+"""JAX/XLA MFCC frontend: batched and jitted, its DFT on the tensor cores.
 
-TPU-first redesign of the reference's per-window scalar loop
+A batched redesign of the reference's per-window scalar loop
 (``streamz-rs/src/lib.rs:279-345``).  The hop being exactly half the window
 lets the 800-point real DFT be computed from *non-overlapping* 400-sample
-blocks with two GEMMs and a shifted add (see
+blocks with one GEMM and a shifted add (see
 :func:`streamz_tpu.dsp.mel.dft_block_matrices`), so the whole frontend is:
 
     PCM [B, T] → blocks [B, nb, 400]
-      → DFT-power GEMMs (MXU) → [B, W, 401]
+      → DFT GEMM (cuBLAS) → parity-signed shifted add → power [B, W, 401]
       → mel GEMM → log → DCT GEMM → [B, W, 20]
-      → Δ/ΔΔ stencil + per-frame z-norm (VPU, fused by XLA)
+      → Δ/ΔΔ stencil + per-frame z-norm (elementwise, fused by XLA)
 
 All shapes are static; ragged clip lengths are handled with a per-clip window
 count and masking, with host-side bucketing of the padded length to bound
@@ -27,12 +27,9 @@ import numpy as np
 
 from streamz_tpu import config
 from streamz_tpu.dsp import mel as melmod
+from streamz_tpu.precision import MATMUL
 
 _BLOCK = config.HOP_SIZE  # 400
-# bf16x3 (3-pass) matmuls: ~1.5e-5 relative error on the DFT — well inside
-# the 1e-3 feature-parity budget — at twice the throughput of the 6-pass
-# full-f32 mode.  (1-pass bf16 is ~2e-3 relative: too lossy.)
-_PREC = jax.lax.Precision.HIGH
 
 
 def _constants():
@@ -79,7 +76,7 @@ def mfcc_base(pcm: jax.Array) -> jax.Array:
     nbins = config.N_FFT_BINS
     blocks = pcm[:, : nb * _BLOCK].reshape(B, nb, _BLOCK)
 
-    parts = jnp.einsum("bnj,jk->bnk", blocks, dft_top, precision=_PREC)
+    parts = jnp.einsum("bnj,jk->bnk", blocks, dft_top, precision=MATMUL)
     cos_p = parts[..., :nbins]
     sin_p = parts[..., nbins:]
 
@@ -89,9 +86,9 @@ def mfcc_base(pcm: jax.Array) -> jax.Array:
     im = sin_p[:, :-1] + sign * sin_p[:, 1:]
     power = re * re + im * im  # [B, W, 401]
 
-    mel_e = jnp.einsum("bwk,km->bwm", power, fb_t, precision=_PREC)
+    mel_e = jnp.einsum("bwk,km->bwm", power, fb_t, precision=MATMUL)
     mel_log = jnp.log(jnp.maximum(mel_e, 1e-12))
-    return jnp.einsum("bwm,mc->bwc", mel_log, dct_t, precision=_PREC)
+    return jnp.einsum("bwm,mc->bwc", mel_log, dct_t, precision=MATMUL)
 
 
 def deltas_and_norm(base: jax.Array, n_win: jax.Array) -> jax.Array:
@@ -154,9 +151,9 @@ def _to_f32(samples: np.ndarray) -> np.ndarray:
     return samples.astype(np.float32)
 
 
-def extract_features(samples: np.ndarray, core=None) -> np.ndarray:
+def extract_features(samples: np.ndarray) -> np.ndarray:
     """Single clip → [n_windows, 60] float32 (device-computed)."""
-    return extract_features_batch([samples], core=core)[0]
+    return extract_features_batch([samples])[0]
 
 
 class DeviceFeatureStore:
@@ -168,21 +165,20 @@ class DeviceFeatureStore:
     records where each clip's rows live, so downstream device consumers —
     the fused discovery loop (:mod:`streamz_tpu.app.device_loop`) — can
     assemble their batches with a device-side gather instead of re-uploading
-    the same floats through the host.  Measured: the re-upload is ~43% of a
-    64-file fused-loop dispatch through a remote TPU (the reference's hot
-    loop C consumes features straight from the in-process map with zero
-    copies, ``streamz-rs/src/main.rs:750-835`` — this is the TPU analogue).
+    the same floats through the host (the reference's hot loop C consumes
+    features straight from the in-process map with zero copies,
+    ``streamz-rs/src/main.rs:750-835``).
 
     Bit-parity note: :func:`deltas_and_norm` zeroes every frame beyond a
     clip's window count, so a gathered row equals the host-packed
     (zero-padded) row bit-for-bit.
 
-    Holding the store keeps every bucket's [B, W, 60] f32 features in HBM
+    Holding the store keeps every bucket's [B, W, 60] f32 features in device memory
     (~110 KB per 10 s clip); call :meth:`release` when the consumer is done.
     ``max_bytes`` bounds that residency: a bucket that would push the total
     over the cap is simply not registered — its clips miss and every
     consumer falls back to host packing for them, so a corpus too big for
-    HBM degrades to round-2 behavior instead of OOMing.  (On a sharded
+    device memory degrades to host packing instead of running out of memory.  (On a sharded
     store the count is global bytes; per-device residency is 1/n_dev.)
     """
 
@@ -195,7 +191,7 @@ class DeviceFeatureStore:
         # host_pack_*: host→device feature bytes consumers moved to repair
         # store misses (scatter_rows) — lets tests/probes assert partial
         # gathers upload only the missing rows.  dropped_*: buckets refused
-        # by the max_bytes HBM cap (their clips miss and host-pack).
+        # by the max_bytes cap (their clips miss and host-pack).
         self.stats = {
             "host_pack_bytes": 0, "host_pack_rows": 0,
             "dropped_buckets": 0, "dropped_bytes": 0,
@@ -232,7 +228,7 @@ class DeviceFeatureStore:
         return self._buckets[bid]
 
     def release(self) -> None:
-        """Drop the device references (frees HBM; lookups miss afterwards,
+        """Drop the device references (frees device memory; lookups miss afterwards,
         so consumers fall back to host-packed features)."""
         self._buckets = []
         self._index = {}
@@ -268,8 +264,8 @@ class DeviceFeatureStore:
         Returns ``(wins, missing)`` where ``missing`` is the list of
         ``(row, key)`` pairs not found in the store; their rows in ``wins``
         are left all-zero for the caller to fill via :meth:`scatter_rows`
-        (host-packing ONLY the misses — one store-missed clip no longer
-        forfeits device residency for its whole chunk, VERDICT r3 #2).
+        (host-packing ONLY the misses — one store-missed clip does not
+        forfeit device residency for its whole chunk).
         ``wins`` is None when NO key hits (a full host pack is cheaper than
         scattering everything) — ``missing`` then lists every row.
 
@@ -402,28 +398,20 @@ def _scatter_prog(mesh, rows_sharded: bool):
 
 
 def extract_features_batch(
-    clips: Sequence[np.ndarray], core=None, mesh=None,
-    allow_pcm_sharded: bool | None = None, store: "DeviceFeatureStore | None" = None,
+    clips: Sequence[np.ndarray], mesh=None,
+    store: "DeviceFeatureStore | None" = None,
 ) -> List[np.ndarray]:
     """Many ragged clips → list of [n_windows_i, 60] arrays.
 
     Clips are grouped by padded-length bucket and each group runs as one
-    batched device call — the TPU replacement for the reference's rayon
-    fan-out over files (src/main.rs:500-508).  ``core`` selects the jitted
-    frontend (defaults to the XLA formulation; the fused Pallas kernel is a
-    drop-in).
+    batched device call — the device replacement for the reference's rayon
+    fan-out over files (src/main.rs:500-508).
 
     With ``mesh`` (a 1-D ``"data"`` mesh), each bucket's clip axis is
-    zero-padded to the mesh size and the core runs under ``shard_map`` with
-    the clip axis sharded — every frontend (XLA *or* the fused Pallas
-    kernels, which auto-SPMD cannot partition) scales over chips with
-    device-count-invariant results (the frontend is elementwise per clip).
-
-    ``allow_pcm_sharded`` controls whether very long clips may route through
-    the PCM-halo window-sharded frontend, which is bit-equal to the *XLA*
-    core specifically; it defaults to True only when the effective core is
-    the XLA formulation, so a caller forcing a Pallas core gets that exact
-    kernel for every clip (still sharded, via the bucket path).
+    zero-padded to the mesh size and the frontend runs under ``shard_map``
+    with the clip axis sharded, with device-count-invariant results (the
+    frontend is elementwise per clip).  Very long clips route through the
+    PCM-halo window-sharded frontend instead.
 
     With ``store`` (a :class:`DeviceFeatureStore`) each bucket's device
     output is registered under the clip's position in ``clips`` before the
@@ -433,15 +421,10 @@ def extract_features_batch(
     """
     if not clips:
         return []
-    if allow_pcm_sharded is None:
-        allow_pcm_sharded = core is None or core is mfcc_features
-    core = core or mfcc_features
     f32 = [_to_f32(c) for c in clips]
     out: List[np.ndarray] = [None] * len(clips)  # type: ignore[list-item]
 
-    shard_long = (
-        allow_pcm_sharded and mesh is not None and mesh.devices.size > 1
-    )
+    shard_long = mesh is not None and mesh.devices.size > 1
     if shard_long:
         # A clip long enough to dwarf the batch runs through the PCM-halo
         # sharded frontend instead: all devices cooperate on its window
@@ -473,10 +456,10 @@ def extract_features_batch(
 
             _, (batch_p, lens_p) = pad_rows_to_mesh(mesh, batch, lens)
             batch_d, lens_d = put_batch_sharded(mesh, batch_p, lens_p)
-            feats_dev = sharded_frontend(core, mesh)(batch_d, lens_d)
+            feats_dev = sharded_frontend(mesh)(batch_d, lens_d)
             feats = fetch(feats_dev)
         else:
-            feats_dev = core(jnp.asarray(batch), jnp.asarray(lens))
+            feats_dev = mfcc_features(jnp.asarray(batch), jnp.asarray(lens))
             feats = np.asarray(feats_dev)
         # Host arithmetic, NOT the device twin: window_count(lens) would
         # add a blocking upload+compute+fetch round trip per bucket just
@@ -491,19 +474,16 @@ def extract_features_batch(
 
 
 @lru_cache(maxsize=32)
-def sharded_frontend(core, mesh):
-    """``core`` wrapped in ``shard_map`` with the clip axis sharded over the
-    mesh.  Explicit SPMD rather than pjit auto-sharding so the fused Pallas
-    kernels compose with the data mesh too (each shard runs the same kernel
-    on its ``B/n_dev`` clips — round-2 missing #2); the XLA core takes the
-    identical path.  Cached per (core, mesh) so repeat calls reuse the
-    compiled program."""
+def sharded_frontend(mesh):
+    """The frontend wrapped in ``shard_map`` with the clip axis sharded over
+    the mesh (each shard runs the frontend on its ``B/n_dev`` clips).
+    Cached per mesh so repeat calls reuse the compiled program."""
     from jax.sharding import PartitionSpec as P
 
     axis = mesh.axis_names[0]
     return jax.jit(
         jax.shard_map(
-            core,
+            mfcc_features,
             mesh=mesh,
             in_specs=(P(axis), P(axis)),
             out_specs=P(axis),

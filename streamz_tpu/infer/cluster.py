@@ -4,7 +4,7 @@ Rebuild of ``cluster_embeddings`` (``streamz-rs/src/lib.rs:1668-1713``):
 random init by sampling k distinct embeddings, assignment by maximum cosine
 similarity, centers recomputed as the normalized mean of their members, empty
 clusters reseeded with a random embedding.  The assignment step is one
-[N x D] @ [D x k] MXU matmul per iteration inside a ``lax.fori_loop``; serves
+[N x D] @ [D x k] matmul per iteration inside a ``lax.fori_loop``; serves
 the ``--cluster-embeddings`` CLI flag (documented at README.md:76 but never
 wired to the CLI in the reference — implemented for real here).
 """
@@ -17,6 +17,8 @@ from typing import List
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from streamz_tpu.precision import MATMUL
 
 
 @partial(jax.jit, static_argnames=("k", "iterations"))
@@ -32,14 +34,14 @@ def _kmeans(embeds: jax.Array, key: jax.Array, *, k: int, iterations: int):
         centers, _ = carry
         cnorm = jnp.linalg.norm(centers, axis=1, keepdims=True)
         cunit = centers / jnp.maximum(cnorm, 1e-12)
-        sims = unit @ cunit.T  # [n, k]
+        sims = jnp.matmul(unit, cunit.T, precision=MATMUL)  # [n, k]
         # zero-norm rows/centers → cosine 0 (src/lib.rs:1536-1539)
         sims = jnp.where((norms > 0) & (cnorm.T > 0), sims, 0.0)
         assign = jnp.argmax(sims, axis=1)
 
         one_hot = jax.nn.one_hot(assign, k, dtype=embeds.dtype)  # [n, k]
         counts = one_hot.sum(axis=0)  # [k]
-        sums = one_hot.T @ embeds  # [k, d]
+        sums = jnp.matmul(one_hot.T, embeds, precision=MATMUL)  # [k, d]
         means = sums / jnp.maximum(counts[:, None], 1.0)
         mnorm = jnp.linalg.norm(means, axis=1, keepdims=True)
         means = jnp.where(mnorm > 1e-6, means / jnp.maximum(mnorm, 1e-12), means)

@@ -195,8 +195,8 @@ def compute_speaker_embeddings(
     authoritative), but a missing one takes the map's windows and publishes
     them to the cache instead of re-ingesting the file one clip at a time —
     on a fresh corpus the reference pays its whole L0+L1 pipeline per file
-    again here (``src/lib.rs:1569`` → ``:558-579``), and a TPU pays a
-    per-file device dispatch.  (Published bytes come from *batched*
+    again here (``src/lib.rs:1569`` → ``:558-579``), and a device pays a
+    per-file dispatch.  (Published bytes come from *batched*
     extraction; a later cache-miss recompute is single-clip — the two agree
     to ~1e-5, inside the 1e-3 parity gate but not bit-identical: QUIRKS.md.)  ``store`` (the ingest stage's
     :class:`~streamz_tpu.dsp.mfcc.DeviceFeatureStore`) additionally lets

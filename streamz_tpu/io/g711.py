@@ -2,9 +2,8 @@
 
 The reference never serves live audio at all (its streaming example is a
 stub, ``streamz-rs/examples/live_stream.rs:1-9``); this module exists for
-the TPU build's multi-stream serving layer (:mod:`streamz_tpu.app.serve`),
-whose measured bottleneck through a remote chip is the host->device PCM
-transfer (benchmarks/ROOFLINE.md "Multi-stream serving").  G.711 is what
+the multi-stream serving layer (:mod:`streamz_tpu.app.serve`), whose ticks
+move every stream's PCM from host to device.  G.711 is what
 production telephony actually puts on the wire: 8 bits/sample instead of
 16 (i16) or 32 (f32), so accepting it natively both halves the transfer
 again *and* removes a host-side transcode for PSTN/VoIP sources.

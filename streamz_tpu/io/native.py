@@ -20,7 +20,7 @@ import numpy as np
 #  1. <repo>/native — the in-tree / sdist layout (three dirs above here);
 #  2. <package>/native — the wheel layout (setup.py copies the sources into
 #     the built package, so `pip install .` keeps the native ingest layer
-#     instead of silently dropping to pure-Python — VERDICT r4 missing #3).
+#     instead of silently dropping to pure-Python).
 _CANDIDATE_DIRS = (
     os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "native"),
@@ -100,7 +100,7 @@ def _warn_unavailable() -> None:
     The fallback is behavior-identical but a large ingest perf cliff
     (threaded C++ decode→downmix→resample vs a Python thread pool), so a
     wheel that lost its sources — or a host without a C++ toolchain — must
-    say so instead of silently serving the slow path (VERDICT r4 #5)."""
+    say so instead of silently serving the slow path."""
     global _warned_fallback
     if _warned_fallback:
         return

@@ -6,7 +6,7 @@ Writer schema (``streamz-rs/src/lib.rs:1081-1130``):
 - ``sample_rate``, ``bits``, ``num_speakers``: i64 arrays of length 1.
 - ``w3_{i+1}`` (f32 column of length h2) and ``b3_{i+1}`` (f32 length 1) for
   each *live* speaker column — only live columns are emitted, so the
-  capacity-padded TPU layout never leaks into checkpoints.
+  capacity-padded device layout never leaks into checkpoints.
 - optional stego layer ``w4_{i+1}``/``b4_{i+1}`` per output bit.
 - ``speaker_{i}_files``: u8 bytes of newline-joined training paths.
 - ``speaker_embeddings`` [S x h2] + ``speaker_mean_sims`` + ``speaker_std_sims``
@@ -288,7 +288,7 @@ def load(path: str) -> SpeakerNet:
         for i in range(n_emb):
             embeddings.append((embeds[i].copy(), float(mean_sims[i]), float(std_sims[i])))
 
-    # Re-pad the live columns into the capacity-aligned TPU layout. The
+    # Re-pad the live columns into the capacity-aligned device layout. The
     # padding seed is derived from the live column *content* (not Python
     # hash(), which is salted per process) so that classes grown after a
     # resume get identical init columns on every run — the determinism

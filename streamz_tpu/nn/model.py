@@ -6,8 +6,8 @@ weights init U(-0.5, 0.5), zero biases, instantiated 60x512x256xS by the CLI
 (``src/main.rs:640``).  The reference grows the softmax layer one column at a
 time with ``add_output_class`` (``src/lib.rs:797-821``).
 
-TPU-first redesign: XLA requires static shapes, so ``w3``/``b3`` are
-pre-allocated at a *capacity* that is a multiple of 128 (MXU lane width) and a
+Static-shape redesign: XLA requires static shapes, so ``w3``/``b3`` are
+pre-allocated at a *capacity* that is a multiple of 128 and a
 logical ``num_speakers`` counter masks the inactive columns.  The unexposed
 columns are already initialized U(-0.5, 0.5) with zero bias, so revealing the
 next column is distributionally identical to the reference's append of a fresh
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from streamz_tpu import config
+from streamz_tpu.precision import MATMUL
 
 Params = Dict[str, jax.Array]
 
@@ -43,7 +44,7 @@ _CAPACITY_ALIGN = 128
 
 
 def round_capacity(n: int) -> int:
-    """Round a class count up to the MXU-aligned capacity."""
+    """Round a class count up to the 128-aligned capacity."""
     n = max(int(n), 1)
     return ((n + _CAPACITY_ALIGN - 1) // _CAPACITY_ALIGN) * _CAPACITY_ALIGN
 
@@ -85,17 +86,23 @@ def class_mask(capacity: int, num_speakers) -> jax.Array:
 # ---------------------------------------------------------------------------
 
 
+def matmul(a: jax.Array, b: jax.Array) -> jax.Array:
+    """The classifier's GEMMs, at the explicit precision of
+    :mod:`streamz_tpu.precision` (the GPU's default would be TF32)."""
+    return jnp.matmul(a, b, precision=MATMUL)
+
+
 def hidden_tanh(params: Params, x: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """Shared trunk: returns (h1=relu, h2=tanh). x: [..., in]."""
-    h1 = jax.nn.relu(x @ params["w1"] + params["b1"])
-    h2 = jnp.tanh(h1 @ params["w2"] + params["b2"])
+    h1 = jax.nn.relu(matmul(x, params["w1"]) + params["b1"])
+    h2 = jnp.tanh(matmul(h1, params["w2"]) + params["b2"])
     return h1, h2
 
 
 def forward_logits(params: Params, x: jax.Array, num_speakers) -> jax.Array:
     """Masked logits over the full capacity. x: [..., in] -> [..., capacity]."""
     _, h2 = hidden_tanh(params, x)
-    logits = h2 @ params["w3"] + params["b3"]
+    logits = matmul(h2, params["w3"]) + params["b3"]
     mask = jnp.arange(logits.shape[-1]) < num_speakers
     return jnp.where(mask, logits, MASK_LOGIT)
 
@@ -125,8 +132,8 @@ def forward_embedding(params: Params, x: jax.Array) -> jax.Array:
     This is the variant used by the incremental loop and ``--eval``
     (src/main.rs:575, :765-767).
     """
-    h1 = jax.nn.relu(x @ params["w1"] + params["b1"])
-    h2 = jax.nn.relu(h1 @ params["w2"] + params["b2"])
+    h1 = jax.nn.relu(matmul(x, params["w1"]) + params["b1"])
+    h2 = jax.nn.relu(matmul(h1, params["w2"]) + params["b2"])
     return h2
 
 
@@ -137,7 +144,7 @@ def forward_bits(params: Params, x: jax.Array) -> jax.Array:
     its full output layer.
     """
     _, h2 = hidden_tanh(params, x)
-    return jax.nn.sigmoid(h2 @ params["w3"] + params["b3"])
+    return jax.nn.sigmoid(matmul(h2, params["w3"]) + params["b3"])
 
 
 # ---------------------------------------------------------------------------

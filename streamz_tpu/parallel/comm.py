@@ -1,4 +1,4 @@
-"""The communication layer: named-axis collectives over ICI/DCN.
+"""The communication layer: named-axis collectives over a device mesh.
 
 The reference has *no* distributed backend — its "communication" is shared
 memory behind locks (``Arc<RwLock<SimpleNeuralNet>>`` at
@@ -7,12 +7,12 @@ counters at ``:714``; see SURVEY.md §2.4).  In the SPMD rebuild those all
 become collectives over a mesh axis:
 
 - the lock-serialized gradient application → ``psum`` gradient allreduce
-  (rides ICI within a slice);
+  (NCCL over NVLink between the GPUs of one host);
 - the shared loss accumulator / file counter → ``psum`` scalars;
 - the snapshot-then-compute centroid reads → ``all_gather``.
 
-Multi-host jobs bootstrap with ``jax.distributed.initialize`` (DCN between
-hosts); inside a slice the same named-axis code runs unchanged.
+Multi-host jobs bootstrap with ``jax.distributed.initialize``; inside one
+host the same named-axis code runs unchanged.
 """
 
 from __future__ import annotations
@@ -79,12 +79,12 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Multi-host bootstrap over DCN (``jax.distributed.initialize``).
+    """Multi-host bootstrap (``jax.distributed.initialize``).
 
     No-op when the job is single-process (the common case in tests and on
     a single host).  Multi-host launchers pass all three coordinator/
     process flags; on a managed cluster whose environment jax can
-    auto-detect (SLURM, GKE, TPU pod metadata), set
+    auto-detect (SLURM, GKE and similar), set
     ``STREAMZ_DIST_AUTO=1`` to opt into ``jax.distributed.initialize()``
     with no args instead — auto-detection is NOT attempted by default
     because probing cluster metadata on every plain single-host CLI run

@@ -3,12 +3,13 @@
 This is the multi-chip equivalent of the reference's shared-memory data
 parallelism (rayon threads + one RwLock'd model,
 ``streamz-rs/src/main.rs:750-835``): the window batch is sharded across
-devices, each device computes gradients on its shard, and a ``psum`` over ICI
-replaces the lock-serialized weight update.  Parameters stay replicated.
+devices, each device computes gradients on its shard, and a ``psum`` (an
+NCCL all-reduce on GPUs) replaces the lock-serialized weight update.
+Parameters stay replicated.
 
 Built on ``shard_map`` so the collective structure is explicit and the step
-jits identically from 1 chip to a full slice (and to multi-host with the same
-axis name over DCN).
+jits identically from 1 device to many (and to multi-host with the same axis
+name).
 """
 
 from __future__ import annotations
@@ -22,14 +23,14 @@ from streamz_tpu.nn import train
 from streamz_tpu.parallel import comm
 
 
-def _dp_local_step(params, batch, labels, weights, num_speakers, lr, backend):
+def _dp_local_step(params, batch, labels, weights, num_speakers, lr):
     """One data-parallel SGD step on this device's shard (runs INSIDE
-    shard_map): local grads -> psum allreduce over ICI (the SPMD
+    shard_map): local grads -> psum allreduce (the SPMD
     replacement for the reference's write-lock serialization) -> global
     mean-gradient update.  Shared by the single-step and scanned-epoch
     trainers so the two can never silently disagree on the update rule."""
     grads_local, loss_local, count_local = train.corpus_grads(
-        params, batch, labels, weights, num_speakers, backend=backend
+        params, batch, labels, weights, num_speakers
     )
     grads = jax.tree_util.tree_map(
         lambda g: comm.psum(g, comm.DATA_AXIS), grads_local
@@ -41,7 +42,7 @@ def _dp_local_step(params, batch, labels, weights, num_speakers, lr, backend):
     return new_params, loss / jnp.maximum(count, 1.0)
 
 
-def make_dp_train_step(mesh: Mesh, backend: str = "auto"):
+def make_dp_train_step(mesh: Mesh):
     """Build a jitted data-parallel SGD step.
 
     Returns ``step(params, batch, labels, weights, num_speakers, lr)`` with
@@ -49,19 +50,7 @@ def make_dp_train_step(mesh: Mesh, backend: str = "auto"):
     replicated.  Semantics match the reference's mean-gradient ``train_batch``
     (``src/lib.rs:1002-1060``) over the *global* batch: the division uses the
     global valid count, so results are independent of the device count.
-
-    'auto' resolves HERE, at build time (not inside the trace), so the
-    returned program is pinned to the decision current when the trainer was
-    built — run the stage autotune (``autotune_train_kernel``) first, as
-    ``train_corpus`` does.
     """
-    backend = train.resolve_train_backend(backend)
-
-    def _local_step(params, batch, labels, weights, num_speakers, lr):
-        return _dp_local_step(
-            params, batch, labels, weights, num_speakers, lr, backend
-        )
-
     shard = partial(
         jax.shard_map,
         mesh=mesh,
@@ -69,22 +58,17 @@ def make_dp_train_step(mesh: Mesh, backend: str = "auto"):
         out_specs=(P(), P()),
         check_vma=False,
     )
-    return jax.jit(shard(_local_step))
+    return jax.jit(shard(_dp_local_step))
 
 
-def make_dp_train_epoch(mesh: Mesh, *, steps: int, backend: str = "auto"):
+def make_dp_train_epoch(mesh: Mesh, *, steps: int):
     """A jitted multi-step trainer: ``lax.scan`` of the DP step over
-    pre-batched data [steps, B, F] (B sharded across devices).
-
-    'auto' resolves at build time — see :func:`make_dp_train_step`."""
-    backend = train.resolve_train_backend(backend)
+    pre-batched data [steps, B, F] (B sharded across devices)."""
 
     def _local_epoch(params, batches, labels, weights, num_speakers, lr):
         def body(params, inp):
             b, l, w = inp
-            return _dp_local_step(
-                params, b, l, w, num_speakers, lr, backend
-            )
+            return _dp_local_step(params, b, l, w, num_speakers, lr)
 
         params, losses = jax.lax.scan(body, params, (batches, labels, weights))
         return params, losses

@@ -1,7 +1,6 @@
 """Process-global device mesh used by the *application* (CLI) paths.
 
-Round 1 built the parallel library but the CLI never used it (VERDICT.md
-missing #2).  This module is the wiring point: the CLI calls
+This module wires the parallel library into the CLI: the CLI calls
 :func:`auto_mesh` once at startup — when more than one device is visible, a
 1-D ``"data"`` mesh over all local devices is built and every batched
 application stage (ingest frontend, initial corpus training, eval embedding

@@ -6,12 +6,12 @@ into i.i.d. 800-sample windows and aggregating per-clip statistics
 (``streamz-rs/src/lib.rs:1285-1303`` vote sums, ``:1450-1471`` embedding
 means).  The only cross-window coupling is the radius-1 Δ/ΔΔ stencil
 (``src/lib.rs:212-228``) and the per-clip pooling — so a long clip shards its
-*window axis* across chips, each chip runs the forward on its shard, and a
-single ``psum`` over ICI merges the vote sums / pooled-embedding statistics.
+*window axis* across devices, each device runs the forward on its shard,
+and a single ``psum`` merges the vote sums / pooled-embedding statistics.
 
 For the MFCC frontend itself the delta stencil at shard edges is handled by
 giving each shard a small halo of PCM blocks (the BlockSpec-style overlap),
-exchanged once over ICI with ``ppermute``: 2 blocks from the left neighbour
+exchanged once with ``ppermute``: 2 blocks from the left neighbour
 and 3 from the right cover both the window overlap (window ``w`` spans blocks
 ``w`` and ``w+1``) and the radius-2 Δ/ΔΔ dependency.  See
 :func:`mfcc_features_pcm_sharded` and the fused
@@ -96,7 +96,8 @@ def make_window_mesh(n_devices=None) -> Mesh:
 
 
 # A 10-minute 44.1 kHz clip is ~66k hop-400 windows; below ~16k windows the
-# single-device forward beats paying the collective (measured round 2).  The
+# single-device forward is expected to beat paying the collective (not yet
+# measured on a GPU mesh).  The
 # app layers (incremental loop, identify voting, ingest) route clips at or
 # above this many windows through the sharded programs here.
 LONG_CLIP_WINDOW_THRESHOLD = 16384
@@ -194,7 +195,8 @@ def _frontend_local_factory(axis: str, n_dev: int, wl: int):
     Returns a function ``(pcm_local[wl*400], n_win[]) -> (feats[wl, 60],
     valid[wl])`` computing this shard's frames ``g in [d*wl, (d+1)*wl)``.
     """
-    from streamz_tpu.dsp.mfcc import _PREC, _constants
+    from streamz_tpu.dsp.mfcc import _constants
+    from streamz_tpu.precision import MATMUL
 
     dft_top, sign, fb_t, dct_t = _constants()
     nbins = config.N_FFT_BINS
@@ -204,7 +206,7 @@ def _frontend_local_factory(axis: str, n_dev: int, wl: int):
         d = jax.lax.axis_index(axis)
         blocks = pcm_local.reshape(wl, block)
         if n_dev > 1:
-            # Single bidirectional halo exchange over ICI.  The cyclic wrap
+            # Single bidirectional halo exchange.  The cyclic wrap
             # at the global edges delivers garbage blocks, but the clamped
             # gathers below never source frames computed from them.
             fwd = [(i, (i + 1) % n_dev) for i in range(n_dev)]
@@ -217,15 +219,15 @@ def _frontend_local_factory(axis: str, n_dev: int, wl: int):
         ext = jnp.concatenate([left, blocks, right], axis=0)  # blocks s-2..s+wl+2
 
         # Same GEMM pipeline as mfcc_base (parity-sign trick included).
-        parts = jnp.dot(ext, dft_top, precision=_PREC)
+        parts = jnp.dot(ext, dft_top, precision=MATMUL)
         cos_p, sin_p = parts[:, :nbins], parts[:, nbins:]
         re = cos_p[:-1] + sign * cos_p[1:]
         im = sin_p[:-1] + sign * sin_p[1:]
         power = re * re + im * im  # [wl+4, 401]
         mel_log = jnp.log(
-            jnp.maximum(jnp.dot(power, fb_t, precision=_PREC), 1e-12)
+            jnp.maximum(jnp.dot(power, fb_t, precision=MATMUL), 1e-12)
         )
-        base_ext = jnp.dot(mel_log, dct_t, precision=_PREC)  # frames s-2..s+wl+1
+        base_ext = jnp.dot(mel_log, dct_t, precision=MATMUL)  # frames s-2..s+wl+1
 
         # Edge-clamped base frames B[g] = base[clip(g, 0, n_win-1)] — exactly
         # the unsharded clamp_tail + edge-replicated central_diff semantics.
@@ -338,7 +340,7 @@ def mfcc_features_pcm_sharded(samples, mesh: Mesh):
 
 def identify_speaker_pcm_sharded(net, samples, mesh: Mesh) -> int:
     """``identify_speaker`` (src/lib.rs:1285-1303) as ONE fused SPMD program:
-    sharded frontend → forward → psum vote sums over ICI."""
+    sharded frontend → forward → psum vote sums."""
     if net.num_speakers == 0:
         return 0  # empty vote sums: argmax would raise (see the feats twin)
     pcm_s, n_win, wl = _shard_pcm(samples, mesh)

@@ -1,7 +1,7 @@
 """Tracing and per-phase timing.
 
 The reference has no profiling at all (SURVEY.md §5.1; its only observability
-is indicatif progress bars).  This module provides the TPU-native story:
+is indicatif progress bars).  This module provides:
 
 - :class:`PhaseTimer` — wall-clock per-phase timing with a printed summary
   (ingest / features / train / eval phases of the CLI);

@@ -152,7 +152,7 @@ def test_checkpoint_across_capacity_boundary(tmp_path):
 
 
 def test_load_padding_deterministic_across_processes(tmp_path):
-    """VERDICT.md weak #4: the capacity-padding columns created at load time
+    """The capacity-padding columns created at load time
     must not depend on Python's per-process hash salt — after a resume,
     newly *grown* classes must get identical init columns in every run."""
     import subprocess
@@ -263,8 +263,7 @@ def test_save_is_atomic(tmp_path, monkeypatch):
 
 
 def test_foreign_rust_writer_layout(tmp_path):
-    """Hand-built emulation of the REFERENCE writer's npz (VERDICT r3
-    missing #4): ndarray-npy 0.8's ``NpzWriter::new`` writes STORED zip
+    """Hand-built emulation of the REFERENCE writer's npz: ndarray-npy 0.8's ``NpzWriter::new`` writes STORED zip
     entries named WITHOUT the ``.npy`` suffix (``src/lib.rs:1081-1130``),
     in the reference's exact key order and shapes (i64 [1] scalars,
     per-column ``w3_{i}``/length-1 ``b3_{i}``, u8 file-list bytes).  The
@@ -371,7 +370,7 @@ def test_load_tolerates_missing_sims_entries(tmp_path):
     np.testing.assert_array_equal(got.embeddings[0][0], np.ones(128))
 
 
-# ---- adversarial reader fuzz (VERDICT r4 #7) -------------------------------
+# ---- adversarial reader fuzz ------------------------------------------------
 #
 # The serving daemon hot-reloads model.npz from disk while serving
 # (app/server.py watcher), so the reader's contract is raise-or-load: any

@@ -1,4 +1,4 @@
-"""Application-level device-count invariance (VERDICT.md next-round #2).
+"""Application-level device-count invariance.
 
 The CLI auto-builds a ``"data"`` mesh over all local devices and routes the
 ingest frontend, initial corpus training, eval embedding batches, and

@@ -183,8 +183,8 @@ def test_trainer_pad_invariant():
 
 def test_interleaved_buckets_still_batch(monkeypatch):
     """Alternating short/long clips (different window buckets) must still
-    batch into full chunks — files in a chunk pad to the chunk's max bucket
-    (round-2 weak #2), and labels are unchanged vs the host oracle."""
+    batch into full chunks — files in a chunk pad to the chunk's max bucket,
+    and labels are unchanged vs the host oracle."""
     from streamz_tpu.app import device_loop as dl
 
     rng = np.random.default_rng(6)
@@ -247,7 +247,7 @@ def test_bucket_spread_cap_flushes():
 
 def test_sharded_scan_matches_single_device():
     """The mesh path of the fused discovery loop (window-sharded embed +
-    per-chunk psum gradients, round-2 missing #1) produces identical labels
+    per-chunk psum gradients) produces identical labels
     and near-identical params at 1 vs 8 devices — same key, dropout on."""
     from streamz_tpu.app import device_loop as dl
     from streamz_tpu.nn import drivers
@@ -389,31 +389,28 @@ def test_legacy_prng_falls_back_to_exact_buckets():
 
 
 def test_scan_backend_probe_executes_on_cpu_mesh(monkeypatch, tmp_path):
-    """Run the (normally TPU-only) scan-backend probes end-to-end by faking
-    on_tpu on the 8-device CPU mesh: state is pre-committed to each
-    candidate's placement OUTSIDE the timed region (so the cached choice
-    measures the scans, not per-rep host->mesh replication), both
+    """Run the (normally GPU-only) scan-backend probes end-to-end by faking
+    a kernel backend on the 8-device CPU mesh: state is pre-committed to
+    each candidate's placement OUTSIDE the timed region (so the cached
+    choice measures the scans, not per-rep host->mesh replication), both
     candidates execute, and a winner lands in the autotune cache."""
     from streamz_tpu.app import device_loop
-    from streamz_tpu.nn.train import _resolve_backend
     from streamz_tpu.parallel import comm
     from streamz_tpu.runtime import autotune
 
     monkeypatch.setattr(autotune, "_CACHE_PATH", str(tmp_path / "t.json"))
     autotune.reset()
-    monkeypatch.setattr(autotune, "on_tpu", lambda: True)
+    monkeypatch.setattr(autotune, "on_gpu", lambda: True)
     try:
         mesh = comm.make_mesh(8)
         net = SpeakerNet.new(output=1, seed=0)
         choice = device_loop._resolve_scan_backend(
             mesh, 1, 8, net.params, 60, 8,
-            _resolve_backend("file_train", "auto"),
         )
         assert choice in ("single", "sharded")
         # and the decision is cached for this device kind
         assert device_loop._resolve_scan_backend(
             mesh, 1, 8, net.params, 60, 8,
-            _resolve_backend("file_train", "auto"),
         ) == choice
     finally:
         autotune.reset()

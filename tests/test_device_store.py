@@ -163,7 +163,7 @@ def test_loop_store_miss_falls_back_per_chunk():
 
 def test_loop_store_partial_gather_uploads_only_misses():
     """One store-missed clip must NOT forfeit device residency for its
-    chunk (VERDICT r3 #2): results stay bit-identical AND the host→device
+    chunk: results stay bit-identical AND the host→device
     repair upload covers exactly the missing rows."""
     rng = np.random.default_rng(40)
     files, fm = _feature_corpus(rng, 12, 3)
@@ -409,19 +409,19 @@ def test_cli_store_env_knob(tmp_path, monkeypatch):
     wav.write_wav(str(p), pcm, config.DEFAULT_SAMPLE_RATE)
     monkeypatch.setenv("STREAMZ_STORE_MAX_MB", "0")
     fmap, store = build_feature_map(
-        [str(p)], FeatureExtractor("jax"), keep_device=True
+        [str(p)], FeatureExtractor("auto"), keep_device=True
     )
     assert store is None and str(p) in fmap
     monkeypatch.setenv("STREAMZ_STORE_MAX_MB", "64")
     fmap, store = build_feature_map(
-        [str(p)], FeatureExtractor("jax"), keep_device=True
+        [str(p)], FeatureExtractor("auto"), keep_device=True
     )
     assert store is not None and store.lookup(str(p)) is not None
 
 
 def test_cli_store_paths_filter(tmp_path):
     """build_feature_map(store_paths=...) pins only the requested clips —
-    eval mode must not spend the HBM budget on training files whose rows
+    eval mode must not spend the device-memory budget on training files whose rows
     are never gathered."""
     from streamz_tpu.cli import build_feature_map
     from streamz_tpu.dsp.features import FeatureExtractor
@@ -438,7 +438,7 @@ def test_cli_store_paths_filter(tmp_path):
         paths.append(str(p))
     keep = set(paths[2:])
     fmap, store = build_feature_map(
-        paths, FeatureExtractor("jax"), keep_device=True, store_paths=keep
+        paths, FeatureExtractor("auto"), keep_device=True, store_paths=keep
     )
     assert store is not None
     for p in paths:
@@ -473,7 +473,7 @@ def test_cli_build_feature_map_returns_path_keyed_store(tmp_path):
         wav.write_wav(str(p), pcm, config.DEFAULT_SAMPLE_RATE)
         paths.append(str(p))
     fmap, store = build_feature_map(
-        paths, FeatureExtractor("jax"), keep_device=True
+        paths, FeatureExtractor("auto"), keep_device=True
     )
     assert store is not None
     for p in paths:

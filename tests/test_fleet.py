@@ -217,3 +217,52 @@ def test_fleet_failover_skips_dead_server_and_migrates(tmp_path):
             fleet.stop_server(1 - i0)
             with pytest.raises(ConnectionError, match="no healthy endpoint"):
                 client.open()
+
+
+def test_fleet_children_get_one_card_each(monkeypatch):
+    """On a GPU host child i sees only card i of the visible cards, so no
+    two children reserve memory on the same card."""
+    from streamz_tpu.app import fleet
+
+    envs = fleet._per_card_envs({"CUDA_VISIBLE_DEVICES": "0,1,2,3"}, 3)
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in envs] == ["0", "1", "2"]
+    # The visible-card list is honored as given (a restricted set).
+    envs = fleet._per_card_envs({"CUDA_VISIBLE_DEVICES": "5, 7"}, 2)
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in envs] == ["5", "7"]
+    # Without the variable the cards come from nvidia-smi.
+    monkeypatch.setattr(fleet, "_visible_cards", lambda env: ["0", "1"])
+    envs = fleet._per_card_envs({}, 2)
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in envs] == ["0", "1"]
+
+
+def test_fleet_refuses_more_children_than_cards(monkeypatch):
+    from streamz_tpu.app import fleet
+
+    with pytest.raises(RuntimeError, match="need one GPU each"):
+        fleet._per_card_envs({"CUDA_VISIBLE_DEVICES": "0"}, 2)
+    monkeypatch.setattr(fleet, "_visible_cards", lambda env: [])
+    with pytest.raises(RuntimeError, match="0 are visible"):
+        fleet._per_card_envs({}, 1)
+    with pytest.raises(RuntimeError, match="JAX_PLATFORMS=cpu"):
+        LocalFleet("x.npz", n_servers=2, env={"JAX_PLATFORMS": "",
+                                              "CUDA_VISIBLE_DEVICES": "0"}
+                   ).start()
+
+
+def test_cpu_pinned_fleet_children_share_the_host():
+    """JAX_PLATFORMS=cpu (the tests' pin) lets any number of children run,
+    and their environment is left as given."""
+    from streamz_tpu.app import fleet
+
+    env = {"JAX_PLATFORMS": "cpu", "X": "1"}
+    envs = fleet._per_card_envs(env, 3)
+    assert envs == [env] * 3
+    assert all("CUDA_VISIBLE_DEVICES" not in e for e in envs)
+
+
+def test_visible_cards_without_nvidia_smi(monkeypatch):
+    """No nvidia-smi (a CPU host) means no visible cards, not a crash."""
+    from streamz_tpu.app import fleet
+
+    monkeypatch.setenv("PATH", "/nonexistent")
+    assert fleet._visible_cards({}) == []

@@ -33,12 +33,12 @@ def test_jax_frontend_matches_golden_features():
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3)
 
 
-def test_pallas_frontend_matches_golden_features():
+def test_auto_extractor_matches_golden_features():
     from streamz_tpu.dsp.features import FeatureExtractor
 
     clip = _load("golden_clip.npy")
     want = _load("golden_features.npy")
-    got = FeatureExtractor("pallas").extract(clip)
+    got = FeatureExtractor("auto").extract(clip)
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3)
 
 

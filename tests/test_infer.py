@@ -229,7 +229,7 @@ def test_embedding_and_sims_gates_match_feats_gate(trained_net):
 
 
 def test_identify_speaker_list_batch_matches_per_clip():
-    """Bucketed multi-clip identify_speaker_list (VERDICT r3 #9): per-clip
+    """Bucketed multi-clip identify_speaker_list: per-clip
     results — including the descending-count/ascending-id tie order and the
     too-short-clip [] — are identical to the host loop, with and without a
     mesh."""

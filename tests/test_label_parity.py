@@ -2,9 +2,8 @@
 
 ``app/device_loop.py`` documents that the sharded scan's labels match the
 single-device scan "up to floating-point near-ties" (the psum's reduction
-order differs from the single-device sum).  Round 3 avoided the near-tie
-regime in its corpora instead of characterizing it (VERDICT r3 weak #3 /
-next #5).  This property test runs RANDOMIZED corpora — including clusters
+order differs from the single-device sum).  This property test runs
+RANDOMIZED corpora — including clusters
 deliberately placed close enough to produce small cosine margins — on
 1 vs 8 devices and pins the bounded claim:
 
@@ -16,7 +15,7 @@ where the margin is recomputed in float64 by replaying the single-device
 run's own embeddings through the loop's exact decision rule
 (cosine-vs-running-sums, <20-id 0.7 relaxation, burn-in/new-class rules —
 ``app/device_loop.py:_file_body``).  The observed flip rate and minimum
-flip margin are printed for the ROOFLINE ledger.
+flip margin are printed.
 """
 
 import numpy as np

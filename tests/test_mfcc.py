@@ -211,3 +211,63 @@ def test_zero_window_clip_features_are_cached(tmp_path, monkeypatch):
     assert cache.exists()
     cached = np.load(cache)
     assert cached.shape[0] == 0
+
+
+# ---------------------------------------------------------------------------
+# The device frontend at real widths, and its backend names.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "n_clips,seconds", [(1, 10.0), (4, 10.0), (8, 2.5), (3, 0.05)]
+)
+def test_xla_frontend_matches_golden_at_real_widths(n_clips, seconds):
+    """The batched device frontend (explicit float32 matmuls) against the
+    float64 golden spec at the identify pipeline's 10 s clips, within the
+    1e-3 parity gate."""
+    rng = np.random.default_rng(n_clips)
+    n = int(seconds * 44100)
+    clips = [
+        (_tone(n, freq=110.0 * (i + 1)) // 2
+         + rng.normal(0, 800, n).astype(np.int16))
+        for i in range(n_clips)
+    ]
+    got = mfcc.extract_features_batch(clips)
+    for g, c in zip(got, clips):
+        want = mfcc_ref.extract_features_np(c)
+        assert g.shape == want.shape
+        if len(want):
+            assert np.abs(g - want).max() <= 1e-3
+
+
+def test_frontend_precision_is_explicit():
+    """The device GEMMs' precision is set, never left to the platform
+    default (TF32 on the GPU fails the parity gate), and the frontend and
+    the classifier share it."""
+    import jax
+
+    from streamz_tpu import precision
+    from streamz_tpu.nn import model
+
+    assert precision.MATMUL == jax.lax.Precision.HIGHEST
+    assert mfcc.MATMUL is model.MATMUL is precision.MATMUL
+
+
+@pytest.mark.parametrize(
+    "backend", ["pallas", "pallas_v2", "pallas_v3", "pallas_v4"]
+)
+def test_removed_pallas_backends_raise(backend):
+    with pytest.raises(ValueError, match="removed"):
+        FeatureExtractor(backend)
+
+
+def test_auto_is_the_only_device_frontend():
+    """'auto' is the one device frontend (the XLA formulation); 'jax',
+    which once forced it over a kernel, raises like the kernels' names."""
+    clip = np.random.default_rng(5).normal(0, 3000, 4000).astype(np.int16)
+    np.testing.assert_array_equal(FeatureExtractor("auto").extract(clip),
+                                  mfcc.extract_features(clip))
+    with pytest.raises(ValueError, match="removed"):
+        FeatureExtractor("jax")
+    with pytest.raises(ValueError, match="unknown"):
+        FeatureExtractor("triton")

@@ -1,6 +1,7 @@
 """SpeakerNet forward/growth semantics tests."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from streamz_tpu.nn import model as M
@@ -138,14 +139,11 @@ def test_zero_speaker_forward_is_all_zero():
     import jax.numpy as jnp
 
     from streamz_tpu.nn.model import SpeakerNet, forward
-    from streamz_tpu.nn.pallas_forward import forward_probs_pallas
 
     net = SpeakerNet.new(output=1, seed=0)
     x = jnp.ones((3, 60), jnp.float32)
     probs = np.asarray(forward(net.params, x, 0))
     np.testing.assert_array_equal(probs, np.zeros_like(probs))
-    probs_k = np.asarray(forward_probs_pallas(net.params, x, 0))
-    np.testing.assert_array_equal(probs_k, np.zeros_like(probs_k))
 
 
 def test_set_output_layer_never_shrinks_capacity():
@@ -161,3 +159,20 @@ def test_set_output_layer_never_shrinks_capacity():
     assert net.capacity == cap_before and net.num_speakers == 5
     w3, b3 = net.output_layer()
     np.testing.assert_allclose(b3, np.arange(5, dtype=np.float32))
+
+
+@pytest.mark.parametrize("num_speakers", [1, 64, 130])
+def test_full_width_forward_matches_float64(num_speakers):
+    """The reference 60->512->256->S classifier at full width (capacity 128
+    or 256) against a float64 forward."""
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from streamz_tpu.nn.model import SpeakerNet, forward
+
+    net = SpeakerNet.new(output=num_speakers, seed=num_speakers)
+    assert net.capacity == (128 if num_speakers <= 128 else 256)
+    x = np.random.default_rng(0).normal(size=(2048, 60)).astype(np.float32)
+    got = np.asarray(forward(net.params, jnp.asarray(x), num_speakers))
+    want = chip_smoke.probs_f64(net.params, x, num_speakers)
+    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -65,7 +65,7 @@ def test_no_autotune_escape(monkeypatch, tmp_path):
 
     from streamz_tpu.runtime import autotune
 
-    monkeypatch.setattr(autotune, "on_tpu", lambda: True)
+    monkeypatch.setattr(autotune, "on_gpu", lambda: True)
     cache = tmp_path / "cache.json"
     monkeypatch.setattr(autotune, "_CACHE_PATH", str(cache))
     monkeypatch.setenv("STREAMZ_NO_AUTOTUNE", "1")
@@ -86,7 +86,8 @@ def test_no_autotune_escape(monkeypatch, tmp_path):
     import jax
 
     key = f"t_stage:{jax.devices()[0].device_kind}"
-    cache.write_text(json.dumps({key: "a"}))
+    cache.write_text(json.dumps({key: {"choice": "a",
+                                       "candidates": ["a", "b"]}}))
     autotune.reset()
     got = autotune.measured_choice("t_stage", {"a": probe, "b": probe}, "b")
     assert got == "a" and probed["n"] == 0
@@ -110,7 +111,7 @@ def test_autotune_cache_invalidated_by_new_candidate(monkeypatch, tmp_path):
 
     from streamz_tpu.runtime import autotune
 
-    monkeypatch.setattr(autotune, "on_tpu", lambda: True)
+    monkeypatch.setattr(autotune, "on_gpu", lambda: True)
     cache = tmp_path / "cache.json"
     monkeypatch.setattr(autotune, "_CACHE_PATH", str(cache))
     monkeypatch.delenv("STREAMZ_NO_AUTOTUNE", raising=False)
@@ -144,19 +145,7 @@ def test_autotune_cache_invalidated_by_new_candidate(monkeypatch, tmp_path):
     )
     assert got == "c" and probed["n"] == 5
 
-    # Legacy plain-string entries re-probe too (and get rewritten versioned)
-    # unless probing is disabled, in which case they are honored as-is.
-    cache.write_text(json.dumps({key: "b"}))
-    autotune.reset()
-    got = autotune.measured_choice("t_inv", {"a": mk(1.0), "b": mk(2.0)}, "b")
-    assert got == "a" and probed["n"] == 7
-
-    cache.write_text(json.dumps({key: "b"}))
     monkeypatch.setenv("STREAMZ_NO_AUTOTUNE", "1")
-    autotune.reset()
-    got = autotune.measured_choice("t_inv", {"a": mk(1.0), "b": mk(2.0)}, "b")
-    assert got == "b" and probed["n"] == 7
-    autotune.reset()
 
     # Probing disabled + a versioned entry from an OLDER candidate set:
     # since no re-measure will happen, a still-valid measured winner beats
@@ -169,7 +158,7 @@ def test_autotune_cache_invalidated_by_new_candidate(monkeypatch, tmp_path):
     got = autotune.measured_choice(
         "t_inv", {"a": mk(1.0), "b": mk(2.0), "c": mk(0.5)}, "b"
     )
-    assert got == "a" and probed["n"] == 7
+    assert got == "a" and probed["n"] == 5
     # ...but a retired winner falls back to the default, memoized so the
     # JSON is not re-read every call.
     cache.write_text(
@@ -177,10 +166,10 @@ def test_autotune_cache_invalidated_by_new_candidate(monkeypatch, tmp_path):
     )
     autotune.reset()
     got = autotune.measured_choice("t_inv", {"a": mk(1.0), "b": mk(2.0)}, "b")
-    assert got == "b" and probed["n"] == 7
+    assert got == "b" and probed["n"] == 5
     cache.unlink()  # memoized: the missing file must not be consulted again
     got = autotune.measured_choice("t_inv", {"a": mk(1.0), "b": mk(2.0)}, "b")
-    assert got == "b" and probed["n"] == 7
+    assert got == "b" and probed["n"] == 5
     autotune.reset()
 
 
@@ -230,31 +219,44 @@ def test_autotune_cache_path_is_per_user(monkeypatch):
         importlib.reload(at)
 
 
-def test_measured_choice_memoizes_all_probe_failure(monkeypatch, tmp_path):
-    """When every probe raises (wedged device), the default is memoized
-    IN-PROCESS — per-call sites (FeatureExtractor resolving per extract)
-    must not re-run the multi-second probe suite for every file — but
-    never persisted, so the next process re-probes."""
+def test_measured_choice_raises_on_failing_probe(monkeypatch, tmp_path):
+    """A candidate whose probe raises is an error: the exception reaches the
+    caller, and nothing is memoized or persisted, so the stage never
+    silently settles on the default."""
+    import pytest
+
     from streamz_tpu.runtime import autotune
 
     monkeypatch.setattr(autotune, "_CACHE_PATH", str(tmp_path / "c.json"))
-    monkeypatch.setattr(autotune, "on_tpu", lambda: True)
+    monkeypatch.setattr(autotune, "on_gpu", lambda: True)
     monkeypatch.setattr(autotune, "probing_disabled", lambda: False)
     autotune._memory.clear()
-    calls = {"n": 0}
 
     def failing_probe():
-        calls["n"] += 1
-        raise RuntimeError("wedged")
+        raise RuntimeError("kernel refused")
 
-    for _ in range(3):
-        got = autotune.measured_choice(
-            "probefail", {"a": failing_probe, "b": failing_probe}, "a"
-        )
-        assert got == "a"
-    assert calls["n"] == 2  # both candidates probed ONCE, then memoized
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="kernel refused"):
+            autotune.measured_choice(
+                "probefail", {"a": lambda: 1.0, "b": failing_probe}, "a"
+            )
+    assert not autotune._memory
     assert autotune._disk_get("probefail:" + _device_kind()) is None
-    autotune._memory.clear()
+
+
+def test_measured_choice_takes_default_off_the_gpu(monkeypatch):
+    """Off the GPU no probe runs: the static default is the answer."""
+    from streamz_tpu.runtime import autotune
+
+    monkeypatch.setattr(autotune, "on_gpu", lambda: False)
+    monkeypatch.setattr(autotune, "probing_disabled", lambda: False)
+    autotune.reset()
+
+    def probe():
+        raise AssertionError("must not probe")
+
+    assert autotune.measured_choice("t_cpu", {"a": probe, "b": probe}, "b") == "b"
+    autotune.reset()
 
 
 def _device_kind():
@@ -296,7 +298,7 @@ def test_autotune_cache_env_set_after_import_wins(tmp_path, monkeypatch):
 
     late = str(tmp_path / "late.json")
     monkeypatch.setenv("STREAMZ_AUTOTUNE_CACHE", late)
-    autotune._disk_put("k:dev", "v")
+    autotune._disk_put("k:dev", {"choice": "v", "candidates": ["v"]})
     assert autotune._disk_get("k:dev") == "v"
     import os
 

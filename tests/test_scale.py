@@ -1,5 +1,5 @@
-"""VoxCeleb-scale stretch config: 1000-speaker batched training over the mesh
-(BASELINE.json configs[4])."""
+"""VoxCeleb-scale stretch config: 1000-speaker batched training over the
+mesh."""
 
 import numpy as np
 import pytest
@@ -221,8 +221,7 @@ def test_checkpoint_roundtrip_1000_speakers(tmp_path):
 def test_full_size_corpus_train_and_eval_1000_speakers(tmp_path):
     """The production configuration — 60x512x256 with 1000 live classes —
     trains data-parallel on the 8-device mesh (loss drops) and runs the eval
-    pipeline end-to-end at that scale (round-2 weak #4: previously only
-    shrunk dims were trained off-TPU)."""
+    pipeline end-to-end at that scale."""
     from streamz_tpu.app.evaluate import evaluate
     from streamz_tpu.infer.embed import batch_clip_embeddings
 
@@ -284,9 +283,9 @@ sys.exit(main([]))
 
 @pytest.mark.slow
 def test_corpus_soak_2k_files_store_eviction_and_determinism(tmp_path):
-    """Corpus soak (VERDICT r3 #8): a ~2k-file synthetic corpus through the
+    """Corpus soak: a ~2k-file synthetic corpus through the
     full CLI on the 8-device mesh, with STREAMZ_STORE_MAX_MB sized so the
-    HBM cap EVICTS one ingest bucket (its clips miss and host-pack — the
+    memory cap EVICTS one ingest bucket (its clips miss and host-pack — the
     partial-gather path at scale) while the other stays device-resident.
     Pins: both runs complete, labels are identical across two fresh runs,
     and peak child RSS stays bounded."""

@@ -306,7 +306,7 @@ def test_model_hot_reload(net, tmp_path):
 
 
 def test_ticker_survives_device_errors(net, monkeypatch):
-    """An exception escaping a batched tick (tunnel hiccup, OOM) must not
+    """An exception escaping a batched tick (a transient device error, OOM) must not
     kill the ticker thread — the daemon would otherwise look alive while
     serving nothing.  The failed tick retries and the stream completes."""
     srv = SpeakerServer(net, port=0, n_streams=2, threshold=0.0,
@@ -561,7 +561,7 @@ def test_client_converts_linear_pcm_onto_narrow_wires(net, server):
 
 
 def test_stats_report_tick_latency_percentiles(net, server):
-    """The serving tail-latency ledger (VERDICT r4 #2): after working
+    """The serving tail-latency ledger: after working
     ticks, STATS carries p50/p95/p99 of working-tick wall time; idle ticks
     are excluded (the count tracks dispatches, not wall-clock polls)."""
     with StreamClient("127.0.0.1", server.port) as c:
@@ -582,7 +582,7 @@ def test_stats_report_tick_latency_percentiles(net, server):
 
 
 def test_corrupt_checkpoint_dropin_never_takes_down_serving(net, tmp_path):
-    """VERDICT r4 #7, watcher half: hostile/corrupt files dropped over the
+    """Watcher half: hostile/corrupt files dropped over the
     watched checkpoint while streams are live must be skipped cleanly —
     the daemon keeps serving on the old model, and a subsequent GOOD
     checkpoint still hot-swaps."""
@@ -649,7 +649,7 @@ def _vm_rss_mb() -> float:
 
 @pytest.mark.slow
 def test_daemon_soak_churn_reaping_reload_rollback(net, tmp_path):
-    """Serving soak under churn (VERDICT r4 #6) — the serving analogue of
+    """Serving soak under churn — the serving analogue of
     the corpus soak in test_scale.py: ~90 s of open/close churn at
     capacity with idle reaping active, one mid-soak hot-reload and one
     rollback, asserting zero slot leakage, bounded RSS growth, and a

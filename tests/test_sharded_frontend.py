@@ -1,7 +1,7 @@
 """PCM-halo sharded MFCC frontend (window_parallel) vs the unsharded frontend.
 
 The CP-analogue capability (SURVEY.md §5.7): a long clip's PCM block axis is
-sharded across the mesh, halo blocks ride ICI via ppermute, and the features
+sharded across the mesh, halo blocks move via ppermute, and the features
 must come out *bit-equal* to the single-device frontend
 (``streamz-rs/src/lib.rs:288-318`` windowing + ``:212-228`` delta stencil).
 """
@@ -83,7 +83,7 @@ def test_empty_clip(mesh):
 
 def test_trailing_partial_block_clip(mesh):
     """Clip lengths whose trailing partial block overruns the shard buffer
-    (ADVICE r2: 13000 samples on the 8-device mesh) are handled — the extra
+    (13000 samples on the 8-device mesh) are handled — the extra
     samples feed no window, so features still match the unsharded frontend."""
     rng = np.random.default_rng(7)
     for n in (13000, 1999, 12800 + 1):
@@ -129,9 +129,8 @@ def test_long_clip_routing_in_batch_ingest(mesh, monkeypatch):
 
 def test_forced_backend_skips_pcm_sharded_route(mesh, monkeypatch):
     """The PCM-halo long-clip route computes features with the XLA
-    formulation, so a caller *forcing* a Pallas backend must not be routed
-    through it — the forced kernel runs for every clip (still sharded, via
-    the clip-axis bucket path).  'auto'/'jax' keep the cooperative route."""
+    formulation, so a caller *forcing* the host golden spec ('numpy') must
+    not be routed through it.  'auto' keeps the cooperative route."""
     from streamz_tpu.dsp import mfcc
     from streamz_tpu.dsp.features import FeatureExtractor
     from streamz_tpu.parallel import window_parallel as wp2
@@ -148,12 +147,12 @@ def test_forced_backend_skips_pcm_sharded_route(mesh, monkeypatch):
         return real(c, m)
 
     monkeypatch.setattr(wp2, "mfcc_features_pcm_sharded", spying)
-    forced = FeatureExtractor("pallas_v3")
+    forced = FeatureExtractor("numpy")
     got = forced.extract_batch([long_clip], mesh=mesh)
-    assert calls["n"] == 0  # honored the forced kernel
+    assert calls["n"] == 0  # honored the forced spec
     np.testing.assert_array_equal(got[0], forced.extract(long_clip))
 
-    FeatureExtractor("jax").extract_batch([long_clip], mesh=mesh)
+    FeatureExtractor("auto").extract_batch([long_clip], mesh=mesh)
     assert calls["n"] == 1  # the XLA-core route is faithful -> taken
 
 

@@ -203,61 +203,48 @@ def test_corpus_step_improves_loss():
     assert losses[-1] < losses[0] * 0.7
 
 
-def test_train_on_windows_resolves_backend_at_call_time(monkeypatch):
-    """'auto' must resolve OUTSIDE the jit, per call — a stale 'auto'-keyed
-    compiled program would pin the losing kernel after autotune lands."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize(
+    "num_speakers,capacity", [(1, 128), (3, 128), (64, 128), (130, 256)]
+)
+def test_corpus_step_matches_delta_rule_oracle(num_speakers, capacity):
+    """The corpus step (XLA autodiff of the surrogate loss) applies the
+    reference's delta rule over the weighted batch, at several class counts
+    and padded capacities; masked rows and out-of-range labels follow the
+    reference (zero target -> pure softmax delta)."""
+    net = SpeakerNet.new(input_size=12, hidden1=10, hidden2=6,
+                         output=num_speakers, seed=num_speakers)
+    net.ensure_capacity(capacity)
+    assert net.capacity == capacity
+    rng = np.random.default_rng(num_speakers)
+    B = 24
+    x = rng.normal(size=(B, 12)).astype(np.float32)
+    y = rng.integers(0, num_speakers + 1, size=B).astype(np.int32)
+    w = (rng.random(B) > 0.25).astype(np.float32)
+    lr = 0.05
 
-    from streamz_tpu.nn import train as T
-    from streamz_tpu.nn.model import SpeakerNet
-
-    seen = []
-
-    def fake_resolve(stage, backend):
-        seen.append((stage, backend))
-        return "xla"
-
-    monkeypatch.setattr(T, "_resolve_backend", fake_resolve)
-    net = SpeakerNet.new(output=2, seed=0)
-    wins = jnp.ones((8, 60), jnp.float32)
-    tvec = jnp.zeros((net.capacity,), jnp.float32).at[0].set(1.0)
-    params = net.params
-    for _ in range(2):
-        # params is donated (donate_argnums=(0,)) — thread the return value.
-        params, _ = T.train_on_windows(
-            params, wins, jnp.int32(8), tvec, jnp.int32(2),
-            jax.random.PRNGKey(0), jnp.float32(0.01), jnp.float32(0.0),
-            epochs=1, batch_size=8,
-        )
-    # The impl also passes the concrete backend through _resolve_backend at
-    # trace time (a no-op passthrough); only the 'auto' resolutions matter —
-    # one per CALL, not one per trace.
-    assert [s for s in seen if s[1] == "auto"] == [("file_train", "auto")] * 2
-
-
-def test_pallas_backend_capped_at_vmem_capacity_bound():
-    """A capacity past PALLAS_TRAIN_MAX_CAPACITY must run the XLA scan even
-    when the resolved backend is 'pallas' — the fused kernel's VMEM
-    working set scales with capacity and would fail to compile MID-RUN
-    (the autotune probe only ever measured capacity 128)."""
-    import jax.numpy as jnp
-
-    from streamz_tpu.nn import train as T
-    from streamz_tpu.nn.model import SpeakerNet
-
-    net = SpeakerNet.new(input_size=60, hidden1=16, hidden2=8, output=2, seed=0)
-    net.ensure_capacity(T.PALLAS_TRAIN_MAX_CAPACITY + 1)
-    cap = net.params["b3"].shape[0]
-    assert cap > T.PALLAS_TRAIN_MAX_CAPACITY
-    wins = np.random.default_rng(0).normal(size=(8, 60)).astype(np.float32)
-    tvec = np.zeros((cap,), np.float32)
-    tvec[0] = 1.0
-    # backend='pallas' explicitly: must take the XLA path and succeed
-    # (on this CPU host the pallas path would run interpret-mode; the
-    # contract under test is the capacity gate, which is backend-global).
-    params, loss = T.train_on_windows(
-        net.params, jnp.asarray(wins), jnp.int32(8), jnp.asarray(tvec),
-        jnp.int32(2), jax.random.PRNGKey(0), jnp.float32(0.05),
-        jnp.float32(0.0), epochs=1, batch_size=8, backend="pallas",
+    params = _np_params(net)
+    kept = w > 0
+    want = params
+    if kept.any():
+        # The oracle's one batch step with per-sample targets: sum the
+        # per-sample deltas by stepping one sample at a time with lr / n.
+        n = int(kept.sum())
+        g_total = {k: np.zeros_like(v) for k, v in params.items()}
+        for xi, yi in zip(x[kept], y[kept]):
+            tgt = np.zeros(num_speakers)
+            if yi < num_speakers:
+                tgt[yi] = 1.0
+            stepped = _oracle_batch_step(params, xi[None], tgt, 1.0,
+                                         num_speakers)
+            for k in params:
+                g_total[k] += params[k] - stepped[k]
+        want = {k: params[k] - (lr / n) * g_total[k] for k in params}
+    got, _ = T.corpus_step(
+        net.params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w),
+        jnp.int32(num_speakers), lr,
     )
-    assert float(loss) > 0.0
+    for k in want:
+        np.testing.assert_allclose(
+            np.asarray(got[k], np.float64), want[k], atol=1e-5, rtol=1e-4,
+            err_msg=k,
+        )

@@ -1,4 +1,4 @@
-"""Wheel-install parity for the native ingest layer (VERDICT r4 #5).
+"""Wheel-install parity for the native ingest layer.
 
 ``pip install .`` used to produce a wheel with no ``native/`` sources: the
 ctypes loader silently fell back to pure-Python ingest — behavior-identical
